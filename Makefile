@@ -15,7 +15,7 @@ slow:
 	$(PY) -m pytest tests/ -q -m slow
 
 lint:
-	$(PY) -m compileall -q heif_tpu bench.py __graft_entry__.py
+	$(PY) -m compileall -q heif_tpu bench.py chip_smoke.py __graft_entry__.py
 	$(PY) tools/lint.py
 
 native:

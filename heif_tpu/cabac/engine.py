@@ -5,8 +5,7 @@ src/cabac/arithmetic.rs:1-255). Differences by design:
 
 - Context storage is a dense ``int8[N_CTX]`` p-state array plus an MPS
   bitmask-style array, not a HashMap — the flat (element → slot) layout is
-  shared with the C++ fast path and the Pallas CABAC state machine, which
-  treat context state as a vector.
+  shared with the C++ fast path, which treats context state as a vector.
 - Snapshots (for WPP context inheritance, §9.3.1) are O(1) array copies.
 
 Tables 9-45/9-46 are H.265 spec constants.

@@ -1,10 +1,9 @@
 """SyntaxTensors: the contract between entropy decode (host) and
-reconstruction (TPU).
+reconstruction (device).
 
 Entropy decoding of one tile/picture produces fixed-layout numpy arrays that
 feed the device pipeline. This is the same contract the C++ fast entropy
-path emits, and the target output layout for the on-device Pallas CABAC
-stage — flat tensors, no pointer structures (SURVEY.md §7 'hard parts #2':
+path emits — flat tensors, no pointer structures (SURVEY.md §7 'hard parts #2':
 the dynamic quadtree is flattened to a TU worklist + dense planes here).
 """
 

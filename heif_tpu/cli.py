@@ -18,6 +18,8 @@ import time
 
 import numpy as np
 
+from heif_tpu.utils.profiling import DEFAULT_TRACE_DIR
+
 
 def _read(path: str) -> bytes:
     with open(path, "rb") as f:
@@ -68,14 +70,10 @@ def cmd_decode(args) -> int:
     data = _read(args.file)
     is_annexb = data[4:8] != b"ftyp"
     t0 = time.perf_counter()
-    with device_trace(getattr(args, "trace", False)):
+    with device_trace(args.trace):
         if is_annexb:
-            # raw Annex-B .hevc stream (no container); --entropy selects
-            # the front end incl. the device residual generator
-            planes = HeicDecoder.decode_hevc(
-                data, backend=args.backend,
-                entropy=getattr(args, "entropy", "auto"),
-            )
+            # raw Annex-B .hevc stream (no container)
+            planes = HeicDecoder.decode_hevc(data, backend=args.backend)
         else:
             planes = HeicDecoder.decode(
                 data,
@@ -194,16 +192,12 @@ def main(argv=None) -> int:
         "--isolate-errors", action="store_true",
         help="corrupt tiles decode as gray instead of failing the image",
     )
-    pd.add_argument(
-        "--entropy", default="auto", choices=["auto", "device-gen"],
-        help="entropy front end for raw .hevc inputs: auto (native C++ "
-             "/ Python twin) or device-gen (the Pallas residual request "
-             "generator decodes every residual bin on the TPU)",
-    )
     pd.add_argument("--stats", action="store_true",
                     help="print per-stage decode stats JSON to stderr")
-    pd.add_argument("--trace", action="store_true",
-                    help="capture a jax.profiler trace of the decode")
+    pd.add_argument("--trace", nargs="?", const=DEFAULT_TRACE_DIR,
+                    default=None, metavar="DIR",
+                    help="capture a jax.profiler trace of the decode into "
+                         f"DIR (default {DEFAULT_TRACE_DIR})")
     pd.set_defaults(fn=cmd_decode)
 
     pv = sub.add_parser("verify", help="bit-exact check vs libde265 oracle")

@@ -2,7 +2,7 @@
 
 Host-side metadata model (parity target: reference src/heif/grammar.rs:1-319).
 These are plain dataclasses — container metadata is KB-scale and never touches
-the TPU; the device only ever sees tile bitstream bytes and decoded planes.
+the device; the device only ever sees tile bitstream bytes and decoded planes.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ the full reconstruction stack the reference stubs out
 
 Two reconstruction backends share the SyntaxTensors contract:
   - "ref": numpy host reference (bit-exact oracle twin)
-  - "jax": TPU pipeline (heif_tpu.ops.jax_recon), default when available
+  - "jax": device pipeline (heif_tpu.ops.jax_recon), default when available
 """
 
 from __future__ import annotations
@@ -40,9 +40,28 @@ class ImageInfo:
     icc: Optional[object] = None  # container.icc.IccProfile when present
 
 
+@dataclass
+class FrontEnd:
+    """What the host front end (HeicDecoder.front_end) hands the
+    reconstruction: parameter sets, the decodable tiles' slices and
+    entropy-decoded syntax, and the layout that stitches the tiles."""
+
+    info: ImageInfo
+    sps: object
+    pps: object
+    grid: g.GridConfig
+    tile_ids: list[int]
+    crop_off: tuple
+    angle: int  # irot of the decoded item
+    hints: dict  # ops.batch.schedule_hints
+    slices: list  # decodable tiles only
+    syntaxes: list  # SyntaxTensors, one per entry of slices
+    bad: dict  # tile index -> the exception that made it undecodable
+
+
 def _jax_usable() -> bool:
     """True when a jax backend initializes (any platform; the jitted
-    pipeline runs on CPU too, just slower than on a TPU)."""
+    pipeline runs on the CPU too, just slower than on a GPU)."""
     try:
         import jax
 
@@ -71,7 +90,7 @@ def _select_vcl_nal(nals: list[bytes]) -> bytes:
 
 
 class HeicDecoder:
-    """End-to-end HEIC decode: container → entropy → TPU reconstruction."""
+    """End-to-end HEIC decode: container → entropy → device reconstruction."""
 
     @staticmethod
     def probe(data: bytes) -> ImageInfo:
@@ -149,37 +168,22 @@ class HeicDecoder:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def decode(
+    def front_end(
         data: bytes,
-        backend: str = "auto",
-        apply_rotation: bool = True,
         item_id: Optional[int] = None,
-        mesh_devices: Optional[int] = None,
         isolate_tile_errors: bool = False,
-        stats=None,
-    ) -> dict:
-        """Decode the primary (or given) image item to YCbCr planes.
-
-        Returns {"Y": ..., "Cb": ..., "Cr": ...} arrays plus "info"
-        (uint8, or uint16 for >8-bit streams; Cb/Cr are None for
-        monochrome items). backend: "auto" (jax when a device is
-        usable, else ref — the documented default), "ref" (numpy host
-        reference) or "jax" (TPU pipeline).
-        mesh_devices: shard the tile grid over an N-device jax Mesh
-          (grid-tile data parallelism, SURVEY.md §2.2) instead of the
-          single-chip batched pipeline.
-        isolate_tile_errors: a corrupt tile yields a mid-gray tile and a
-          structured error record instead of aborting the whole image
-          (SURVEY.md §5 failure-detection row); error details land in
-          stats.tile_errors / stats.errors when a DecodeStats is passed.
-        """
+    ) -> FrontEnd:
+        """The host half of decode(): container, parameter sets, slice
+        headers and entropy decode of the primary (or given) item. Its
+        slices and syntaxes are what the reconstruction backends take
+        (e.g. ops.batch.plan_chunks builds the device batches from them).
+        isolate_tile_errors: see decode()."""
+        from heif_tpu import native
+        from heif_tpu.cabac.syntax import TileSyntaxDecoder
         from heif_tpu.hevc import params
         from heif_tpu.hevc import slice as sl
         from heif_tpu.hevc.rbsp import remove_emulation_prevention
-        from heif_tpu.cabac.syntax import TileSyntaxDecoder
-
-        if backend == "auto":
-            backend = "jax" if _jax_usable() else "ref"
+        from heif_tpu.ops.batch import schedule_hints
 
         reader = HeifReader(data)
         heif = reader.read()
@@ -243,8 +247,6 @@ class HeicDecoder:
         # Python oracle otherwise). With isolate_tile_errors, header or
         # entropy corruption in one tile is captured instead of raised —
         # that tile decodes as mid-gray and the rest of the grid survives.
-        from heif_tpu import native
-
         slices = []
         bad: dict[int, Exception] = {}
         for ti, tid in enumerate(tile_ids):
@@ -260,17 +262,75 @@ class HeicDecoder:
                     raise
                 bad[ti] = e
                 slices.append(None)
-        good = [ps for ps in slices if ps is not None]
-        if not good:
+        if not any(ps is not None for ps in slices):
             raise ValueError("no decodable tiles")
 
         # scheduler hints from the stream's declared parallelism metadata
         # (hvcC parallelism_type / min_spatial_segmentation_idc)
-        from heif_tpu.ops.batch import schedule_hints
-
         hints = schedule_hints(rec, sps, pps, len(tile_ids))
+
+        def entropy(parsed):
+            if native.available():
+                return native.decode_tiles_parallel(
+                    sps, pps, parsed,
+                    max_workers=hints.get("entropy_workers"),
+                )
+            return [TileSyntaxDecoder(sps, pps, ps).decode() for ps in parsed]
+
+        if isolate_tile_errors:
+            syntaxes = []
+            for ti, ps in enumerate(slices):
+                if ps is None:
+                    continue
+                try:
+                    syntaxes.extend(entropy([ps]))
+                except Exception as e:
+                    bad[ti] = e
+                    slices[ti] = None
+            slices = [ps for ps in slices if ps is not None]
+        else:
+            syntaxes = entropy(slices)
+        if not slices:
+            raise ValueError("no decodable tiles")
+        return FrontEnd(
+            info=info, sps=sps, pps=pps, grid=grid, tile_ids=tile_ids,
+            crop_off=crop_off, angle=angle, hints=hints, slices=slices,
+            syntaxes=syntaxes, bad=bad,
+        )
+
+    @staticmethod
+    def decode(
+        data: bytes,
+        backend: str = "auto",
+        apply_rotation: bool = True,
+        item_id: Optional[int] = None,
+        mesh_devices: Optional[int] = None,
+        isolate_tile_errors: bool = False,
+        stats=None,
+    ) -> dict:
+        """Decode the primary (or given) image item to YCbCr planes.
+
+        Returns {"Y": ..., "Cb": ..., "Cr": ...} arrays plus "info"
+        (uint8, or uint16 for >8-bit streams; Cb/Cr are None for
+        monochrome items). backend: "auto" (jax when a device is
+        usable, else ref — the documented default), "ref" (numpy host
+        reference) or "jax" (device pipeline).
+        mesh_devices: shard the tile grid over an N-device jax Mesh
+          (grid-tile data parallelism, SURVEY.md §2.2) instead of the
+          single-chip batched pipeline.
+        isolate_tile_errors: a corrupt tile yields a mid-gray tile and a
+          structured error record instead of aborting the whole image
+          (SURVEY.md §5 failure-detection row); error details land in
+          stats.tile_errors / stats.errors when a DecodeStats is passed.
+        """
+        if backend == "auto":
+            backend = "jax" if _jax_usable() else "ref"
+
+        fe = HeicDecoder.front_end(data, item_id, isolate_tile_errors)
+        sps, pps = fe.sps, fe.pps
+        slices_good, syntaxes_good, bad = fe.slices, fe.syntaxes, fe.bad
         if stats is not None:
-            stats.scheduler = hints
+            stats.scheduler = dict(fe.hints)
 
         # tiles-enabled pictures (intra-picture tile partitioning, rare
         # in HEIF) decode on the fast path (native tile-scan entropy +
@@ -282,10 +342,8 @@ class HeicDecoder:
         # never needs a debugger.
         reason = None
         if pps.tiles_enabled_flag and backend == "jax":
-            sh0 = next((s.header for s in slices if s is not None), None)
-            sao_on = sh0 is not None and (
-                sh0.slice_sao_luma_flag or sh0.slice_sao_chroma_flag
-            )
+            sh0 = slices_good[0].header
+            sao_on = sh0.slice_sao_luma_flag or sh0.slice_sao_chroma_flag
             if (
                 not pps.loop_filter_across_tiles_enabled_flag and sao_on
             ):
@@ -302,39 +360,12 @@ class HeicDecoder:
         if reason is not None:
             backend = "ref"
             if stats is not None:
-                stats.scheduler = dict(stats.scheduler or {})
                 stats.scheduler["backend_downgrade"] = reason
             import logging
 
             logging.getLogger("heif_tpu").info(reason)
         if stats is not None:
-            stats.scheduler = dict(stats.scheduler or {})
             stats.scheduler["effective_backend"] = backend
-
-        def entropy(parsed):
-            if native.available():
-                return native.decode_tiles_parallel(
-                    sps, pps, parsed,
-                    max_workers=hints.get("entropy_workers"),
-                )
-            return [TileSyntaxDecoder(sps, pps, ps).decode() for ps in parsed]
-
-        if isolate_tile_errors:
-            syntaxes_good = []
-            for ti, ps in enumerate(slices):
-                if ps is None:
-                    continue
-                try:
-                    syntaxes_good.extend(entropy([ps]))
-                except Exception as e:
-                    bad[ti] = e
-                    slices[ti] = None
-            slices_good = [ps for ps in slices if ps is not None]
-        else:
-            slices_good = slices
-            syntaxes_good = entropy(slices_good)
-        if not slices_good:
-            raise ValueError("no decodable tiles")
 
         # reconstruct (per backend)
         if backend == "ref":
@@ -381,7 +412,7 @@ class HeicDecoder:
             ]
             tiles = []
             it = iter(tiles_good)
-            for ti in range(len(tile_ids)):
+            for ti in range(len(fe.tile_ids)):
                 tiles.append(gray if ti in bad else next(it))
             if stats is not None:
                 stats.tile_errors = len(bad)
@@ -391,88 +422,24 @@ class HeicDecoder:
         else:
             tiles = tiles_good
         if stats is not None:
-            stats.tiles = len(tile_ids)
+            stats.tiles = len(fe.tile_ids)
 
         planes = HeicDecoder._stitch(
-            tiles, grid, sps, apply_rotation, angle, crop_off=crop_off
+            tiles, fe.grid, sps, apply_rotation, fe.angle,
+            crop_off=fe.crop_off,
         )
-        planes["info"] = info
+        planes["info"] = fe.info
         return planes
 
     @staticmethod
-    def _entropy_device_gen(sps, pps, ps):
-        """Entropy via the device-side residual request generator.
-
-        The host pass supplies the envelope (non-residual syntax and TU
-        markers); the Pallas engine decodes every residual-coding bin
-        from raw substream bytes and emits coefficients as events, which
-        are scattered into the planes reconstruction consumes — the
-        coefficients are genuinely device-decoded (the host's own
-        residual results are discarded and replaced). Interpret mode
-        (jit-compiled) runs the same kernel on CPU-only hosts.
-        """
-        import jax
-
-        from heif_tpu.cabac.envelope import (
-            build_envelope_tape,
-            envelope_trace,
-        )
-        from heif_tpu.ops import pallas_cabac_gen as G
-
-        if pps.tiles_enabled_flag:
-            raise NotImplementedError(
-                "device-gen entropy does not take tile-segmented "
-                "substreams yet"
-            )
-        tr = envelope_trace(sps, pps, ps)
-        rbsp = ps.rbsp if isinstance(ps.rbsp, bytes) else bytes(ps.rbsp)
-        entries = []
-        for si, seg in enumerate(tr.segments):
-            tape, n_steps = build_envelope_tape(tr, si)
-            spans = sorted(
-                (sp for sp in tr.spans if sp.seg == si),
-                key=lambda sp: sp.b0,
-            )
-            entries.append((rbsp, seg, tape, n_steps, spans))
-        interpret = jax.devices()[0].platform != "tpu"
-        # gen_image batches 128 lanes at a time (tall WPP pictures and
-        # PCM restarts can exceed one batch of segments)
-        results = G.gen_image(entries, interpret=interpret)
-        st = tr.syntax
-        # replace the host's residual results with the device's
-        st.coeffs = [np.zeros_like(p) for p in st.coeffs]
-        for ei, (events_col, p_fin, mps_fin) in enumerate(results):
-            _, seg, _, _, spans = entries[ei]
-            G.scatter_events(events_col, spans, st.coeffs)
-            # belt and braces: the engines must agree on final ctx state
-            if not (
-                np.array_equal(p_fin, seg.p_final)
-                and np.array_equal(mps_fin, seg.mps_final)
-            ):
-                raise ValueError(
-                    f"device-gen entropy desync in substream {ei}"
-                )
-        return st
-
-    @staticmethod
-    def decode_hevc(
-        stream: bytes, backend: str = "ref", entropy: str = "auto"
-    ) -> dict:
+    def decode_hevc(stream: bytes, backend: str = "ref") -> dict:
         """Decode a raw single-picture HEVC Annex-B intra stream.
 
         Exceeds the reference (which only decodes NALs embedded in HEIF
         containers): accepts bare `.hevc` byte streams such as x265
         output, used by the bitstream fixture matrix. Returns
-        {"Y", "Cb", "Cr"} uint8 planes.
-
-        entropy: "auto" (native C++ when available, Python twin
-        otherwise) or "device-gen" — the Pallas residual request
-        generator (ops.pallas_cabac_gen): the device derives and decodes
-        every residual-coding bin itself from raw substream bytes plus
-        the envelope tape, and the coefficient planes fed to
-        reconstruction come from device-emitted events. (The envelope —
-        quadtree/modes/cbf — still comes from a host pass today; see the
-        generator module docstring for the staged boundary.)
+        {"Y", "Cb", "Cr"} uint8 planes. Entropy runs in the native C++
+        decoder when it is available, in the Python twin otherwise.
         """
         from heif_tpu.hevc import params
         from heif_tpu.hevc import slice as sl
@@ -503,9 +470,7 @@ class HeicDecoder:
                 or ps.header.slice_sao_chroma_flag
             ):
                 backend = "ref"
-        if entropy == "device-gen":
-            st = HeicDecoder._entropy_device_gen(sps, pps, ps)
-        elif native.available():
+        if native.available():
             # the native twin handles 8/10-bit, 4:0:0/4:2:0, and
             # tiles_enabled_flag=1 (tile-scan CTU order + §6.4.1
             # availability; verified bit-exact vs the Python twin by the

@@ -1335,8 +1335,8 @@ int heif_entropy_decode_tile_tiled(
 // ---------------------------------------------------------------------------
 // Native per-tile packing: tu_table + coeff planes -> device-ready class
 // blocks and scan-field arrays (the host pack is on the decode critical
-// path on 2-core tunneled hosts; doing the block gathers here keeps them
-// at memcpy speed, GIL-free, inside the per-tile worker threads).
+// path; doing the block gathers here keeps them at memcpy speed, GIL-free,
+// inside the per-tile worker threads).
 // Layout contract mirrors heif_tpu/ops/batch.py pack_batch / CLASSES.
 // ---------------------------------------------------------------------------
 

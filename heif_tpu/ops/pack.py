@@ -1,6 +1,6 @@
 """Host-side packing: SyntaxTensors -> device-ready tensors (DecodePlan).
 
-The TPU reconstruction pipeline (ops.jax_recon) is fully static: every
+The device reconstruction pipeline (ops.jax_recon) is fully static: every
 data-dependent decision that does NOT depend on reconstructed sample values
 is resolved here on host, at pack time:
 
@@ -9,7 +9,7 @@ is resolved here on host, at pack time:
   absolute (y, x) source per reference position (-1 -> constant 1<<(bd-1)).
   The device just gathers from the current reconstruction plane.
 - transform-class grouping: cbf TUs bucketed by (component, size) so the
-  inverse transforms run as dense batched matmuls on the MXU.
+  inverse transforms run as dense batched matmuls.
 - deblock edge/bs/QP/no-filter maps at segment granularity.
 
 Value-dependent logic (reference smoothing output, strong-filter

@@ -1,6 +1,6 @@
 """Bit-exact numpy reference reconstruction (H.265 §8.4-8.7).
 
-This is the host-side oracle for the TPU kernels in heif_tpu.ops.*: the two
+This is the host-side oracle for the device pipeline in heif_tpu.ops.*: the two
 implementations must produce identical planes (which are in turn verified
 against libde265). Completes the pixel stack absent from the reference
 (README.md:7 — "HEVC slice decoding for actual image reconstruction is

@@ -1,6 +1,6 @@
 """Numeric constant tables for HEVC reconstruction (H.265 §8.4-8.7).
 
-Shared by the numpy reference reconstruction, the JAX/Pallas kernels, and
+Shared by the numpy reference reconstruction, the JAX device pipeline, and
 tests. Everything here is a spec constant.
 """
 

@@ -1,11 +1,11 @@
 """Multi-host decode scaffolding: jax.distributed + global tile meshes.
 
 SURVEY.md §2.3: the reference is single-process with no comm backend at
-all; the TPU-native equivalent is JAX's distributed runtime for
-cross-host process groups, a global Mesh over every chip in the pod, and
-XLA collectives over ICI/DCN as the only transport. For a still-image
-decoder the traffic pattern is trivially partitionable: tile bitstreams
-scatter to hosts over DCN, decoded planes gather back — no other
+all; here it is JAX's distributed runtime for cross-host process
+groups, a global Mesh over every device of every host, and XLA
+collectives as the only transport. For a still-image decoder the
+traffic pattern is trivially partitionable: tile bitstreams scatter to
+hosts, decoded planes gather back — no other
 communication exists (BASELINE.md config 4).
 
 On a single host this module degenerates gracefully: init_distributed()
@@ -70,7 +70,7 @@ def make_global_mesh(n_devices: int | None = None):
 
     Device order follows jax.devices(), which groups by process — so
     contiguous tile shards land host-local and only the plane gather
-    crosses DCN.
+    crosses hosts.
     """
     return make_mesh(n_devices)
 

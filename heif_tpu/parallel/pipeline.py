@@ -5,10 +5,10 @@ the primary axis is grid-tile data parallelism. Packing here is
 tile-uniform ([N, ...] leading axis everywhere, per-tile transform classes
 padded to a common count), so shard_map over a 1-D 'tiles' mesh keeps all
 compute device-local; the only communication is the output stitch, an
-all_gather of decoded planes over ICI.
+all_gather of decoded planes.
 
 Scales to multi-host the same way: jax.distributed + a global mesh; tile
-bitstreams scatter over DCN, planes gather back (no other traffic).
+bitstreams scatter to hosts, planes gather back (no other traffic).
 """
 
 from __future__ import annotations
@@ -331,7 +331,7 @@ _sharded_jit_cache: dict = {}
 def reconstruct_sharded(arrays, static, mesh: Mesh, gather: bool = True):
     """Run the tile decode sharded over mesh axis 'tiles'.
 
-    With gather=True the decoded plane stacks are all_gathered over ICI so
+    With gather=True the decoded plane stacks are all_gathered so
     every device holds the full set (the grid-stitch communication step);
     otherwise outputs stay tile-sharded.
     """
@@ -509,7 +509,7 @@ def _put_sharded(arrays: dict, mesh: Mesh) -> dict:
     """Place packed host arrays tile-sharded over the (possibly
     multi-process global) mesh. Every process passes the identical full
     array; device_put lays down only the shards addressable locally, so
-    this is the DCN bitstream-scatter step of SURVEY.md §2.3 on a
+    this is the cross-host bitstream-scatter step of SURVEY.md §2.3 on a
     multi-host mesh and a plain H2D on one host."""
     sh = NamedSharding(mesh, PS("tiles"))
     return {k: jax.device_put(v, sh) for k, v in arrays.items()}

@@ -62,6 +62,15 @@ class _De265:
         return cls._lib
 
 
+def de265_available() -> bool:
+    """True when libde265 loads on this host."""
+    try:
+        _De265.lib()
+    except OSError:
+        return False
+    return True
+
+
 def decode_hevc_annexb(stream: bytes) -> list[np.ndarray]:
     """Decode an Annex-B HEVC stream; returns [Y, Cb, Cr] planes
     (uint8 for 8-bit streams, uint16 for 10/12-bit)."""

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 
@@ -93,13 +95,18 @@ class DecodeStats:
         return "  ".join(parts)
 
 
+DEFAULT_TRACE_DIR = os.path.join(tempfile.gettempdir(), "heif_tpu_trace")
+
+
 @contextlib.contextmanager
-def device_trace(enabled: bool, logdir: str = "/tmp/heif_tpu_trace"):
-    """Optional jax.profiler trace around a decode (CLI --trace)."""
-    if not enabled:
+def device_trace(logdir: str | None):
+    """jax.profiler trace around a decode into `logdir` (CLI --trace);
+    no trace when logdir is None."""
+    if logdir is None:
         yield
         return
     import jax.profiler
 
     with jax.profiler.trace(logdir):
         yield
+

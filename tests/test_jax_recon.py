@@ -1,7 +1,7 @@
-"""JAX/TPU reconstruction pipeline vs the numpy reference (bit-exact).
+"""JAX reconstruction pipeline vs the numpy reference (bit-exact).
 
 Runs on the CPU backend (conftest forces JAX_PLATFORMS=cpu); the same
-jitted program runs unchanged on TPU.
+jitted program runs unchanged on the GPU.
 """
 
 import numpy as np

@@ -2,8 +2,8 @@
 
 Runs on the virtual 8-device CPU mesh built by conftest (mirrors the
 reference's test-without-special-hardware strategy, SURVEY.md §4). The
-same code path shards over real TPU chips via the identical Mesh API;
-the driver's dryrun_multichip exercises compile+execute separately.
+same code path shards over GPUs through the identical Mesh API
+(`python chip_smoke.py --mesh 4` runs it on four cards).
 """
 
 import numpy as np

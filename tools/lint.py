@@ -16,7 +16,8 @@ import symtable
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-TARGETS = ["heif_tpu", "tests", "bench.py", "__graft_entry__.py", "tools"]
+TARGETS = ["heif_tpu", "tests", "bench.py", "chip_smoke.py", "__graft_entry__.py",
+           "tools"]
 BUILTINS = set(dir(builtins)) | {"__file__", "__name__", "__doc__", "__package__",
                                  "__builtins__", "__spec__", "__loader__", "__debug__",
                                  "__class__", "__path__", "WindowsError"}
